@@ -1,7 +1,7 @@
-"""jsdr_tpu — a TPU-native software-defined-radio framework.
+"""jsdr_tpu — a software-defined-radio framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-``phlash/java-sdr`` application (reference mounted at /root/reference):
+A from-scratch JAX/XLA re-design of the capabilities of the
+``phlash/java-sdr`` application:
 
 - IQ ingestion (S16LE interleaved, raw/WAV files, synthetic sources)
 - windowed batched FFT spectrum / PSD / waterfall
@@ -11,9 +11,9 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 - AO-40 FEC codec: Viterbi(k=7, r=1/2) + 2x shortened RS(255,223)
 
 Unlike the reference (per-sample Java loops on one thread), every
-data-parallel stage here is a batched array op compiled by XLA onto the
-TPU MXU/VPU, the per-sample feedback loops are ``lax.scan`` recurrences
-over an explicit state pytree, and multi-chip scaling uses
+data-parallel stage here is a batched array op compiled by XLA for the
+accelerator, the per-sample feedback loops are ``lax.scan`` recurrences
+over an explicit state pytree, and multi-device scaling uses
 ``jax.sharding.Mesh`` + ``shard_map`` with halo exchange for
 overlap-save filter boundaries.
 """

@@ -213,7 +213,7 @@ def cmd_demod_stream(args):
     if d:
         print(f"demod stage: {d['samples'] / max(d['wall_s'], 1e-9) / 1e6:.1f} "
               f"MS/s ({d['wall_s'] / max(d['calls'], 1):.4f} s/block)")
-    return 0
+    return 1 if session.dropped_blocks else 0
 
 
 def cmd_demod(args):
@@ -314,7 +314,7 @@ def cmd_telemetry_stream(args):
         print(f"stream state -> {args.checkpoint}")
     print(f"{n} blocks streamed, frames={frames[0]}, "
           f"dropped={session.dropped_blocks or 'none'}")
-    return 0
+    return 1 if session.dropped_blocks else 0
 
 
 def cmd_telemetry(args):
@@ -524,7 +524,7 @@ def cmd_record(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="jsdr-tpu",
-                                description="TPU-native SDR framework")
+                                description="software-defined radio on JAX")
     p.add_argument("--rate", type=int, default=96000)
     p.add_argument("--seconds", type=int, default=5,
                    help="duration for synthetic sources")
@@ -573,7 +573,7 @@ def main(argv=None):
     dm.add_argument("--blocks", type=int, default=None,
                     help="stop streaming after N 0.1s blocks")
     dm.add_argument("--device-convert", action="store_true",
-                    help="stream raw int16 and convert on the TPU "
+                    help="stream raw int16 and convert on the device "
                     "(half the upload bytes; JavaAudio.java:275-293 "
                     "semantics on-device)")
     dm.set_defaults(fn=cmd_demod)
@@ -594,7 +594,7 @@ def main(argv=None):
     tl.add_argument("--blocks", type=int, default=None,
                     help="stop streaming after N 1s blocks")
     tl.add_argument("--device-convert", action="store_true",
-                    help="stream raw int16 and convert on the TPU "
+                    help="stream raw int16 and convert on the device "
                     "(half the upload bytes; JavaAudio.java:275-293 "
                     "semantics on-device)")
     tl.add_argument("--mesh", metavar="DPxSP",
@@ -670,8 +670,10 @@ def main(argv=None):
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    from ..runtime.device import init_compile_cache
+    init_compile_cache()
     return args.fn(args)
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""AM / narrow-FM / wide-FM audio demodulation — the TPU equivalent of the
+"""AM / narrow-FM / wide-FM audio demodulation — the batched equivalent of the
 per-sample loop at demod.java:398-483.
 
 Everything is one fused XLA graph over a whole block (arbitrarily larger
@@ -43,12 +43,9 @@ class AmFmConfig(NamedTuple):
     flo: int | None = None      # band-pass low edge Hz (None = all-pass)
     fhi: int | None = None
     ntaps: int = 21             # fixed order 20 (demod.java:82-85)
-    fir_precision: str = "highest"  # exact-f32 FIR. "bf16x3" measured
-                                    # 20% SLOWER here (31.0 vs 25.8 ms
-                                    # at 64x10s WFM: this FIR is data-
-                                    # movement-bound and the bf16 data
-                                    # splits cost more than the passes
-                                    # they save)
+    fir_precision: str = "highest"  # exact-f32 FIR; "bf16x3" = the
+                                    # 3-product split of ops.fir (which
+                                    # is faster on the GPU is ROADMAP S8)
 
     def weights(self) -> jnp.ndarray:
         return bandpass_weights(self.ntaps, self.flo, self.fhi, float(self.rate))

@@ -21,7 +21,7 @@ The computation is split by data dependence so it scales:
 sp-sharded step (parallel/sharded.py) runs precompute/emit locally per
 time shard and resolves the recurrence across shards with a log-free
 ppermute relay (the state is 3 scalars per stream). Transforms use the
-planar MXU matmul FFT (no complex HLO).
+planar matmul FFT (ops/mxu_fft.py).
 """
 
 from __future__ import annotations
@@ -82,8 +82,8 @@ def tuner_precompute(iq_blocks: CF, track_high):
     zero = jnp.zeros(psd.shape[:-1] + (1,), psd.dtype)
     csum = jnp.cumsum(jnp.concatenate([zero, psd], axis=-1), axis=-1)
     # csum[clip(i +- BOX_HALF, 0, n/2)] is a SHIFT with clamped edges —
-    # pure slices + edge broadcasts, no gather (TPU gathers measured
-    # slow throughout round 5; values identical to jnp.take)
+    # pure slices + edge broadcasts, no gather (values identical to
+    # jnp.take)
     half = samples // 2
     hi_v = jnp.concatenate(
         [csum[..., BOX_HALF:],
@@ -147,16 +147,14 @@ def tuner_emit(spec: CF, centres: jnp.ndarray) -> CF:
     [n_blocks] i32. Returns the CF feed [n_blocks, samples] with
     I = Q = re (the Q-drop quirk, :461-463).
 
-    Round-5 form, gather-free end to end (TPU gathers dominated the
-    original): the 204-bin slice is extracted with an EXACT one-hot row
+    Gather-free end to end: the 204-bin slice is extracted with an EXACT one-hot row
     matmul (HIGHEST-precision f32 dot — unlike demod.bpsk._extract_rows
     the buffer holds arbitrary floats, so bf16 would round them) plus a
     7-step fine roll, and the zero-pad + inverse FFT collapses to ONE
     constant [204, samples] iDFT matmul of the slice (the padded
     spectrum is zero outside bins 0..203). Numerically equivalent to
-    the per-block iFFT within ~2.5e-7 relative (bench/exp_r9_tuner.py);
-    the vmapped-dynamic-slice + per-block-iFFT form measured 31.6 ms at
-    [128 x 48] blocks on v5e vs ~10 ms for this form."""
+    the per-block iFFT within ~2.5e-7 relative (the form it replaced
+    was a vmapped dynamic slice + per-block iFFT)."""
     samples = spec.shape[-1]
     n_rows = samples // 128
     out_len = 2 * SLICE_HALF

@@ -1,6 +1,6 @@
 """Minimal dependency-free renderers: PNG (pure-python zlib encoder) for
 waterfalls, ASCII PSD plots for terminals — replaces the Swing paint
-paths for a headless TPU host."""
+paths for a headless host."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Full AO-40 frame decode: the TPU-batched equivalent of
+"""Full AO-40 frame decode: the batched equivalent of
 ``FECDecoder.FECDecode`` (FECDecoder.java:703-852).
 
 Pipeline (all fixed-shape, jit/vmap friendly):
@@ -83,4 +83,5 @@ def fec_decode(raw: jnp.ndarray) -> FecResult:
     fn = _decode_one
     for _ in range(raw.ndim - 1):
         fn = jax.vmap(fn)
-    return fn(raw)
+    with jax.named_scope("fec"):
+        return fn(raw)

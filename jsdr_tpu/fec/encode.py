@@ -1,6 +1,6 @@
 """Batched JAX AO-40 encoder (re-encode verifier + synthetic-frame source).
 
-TPU-native re-design of the reference encoder (FECDecoder.java:538-688):
+Batched re-design of the reference encoder (FECDecoder.java:538-688):
 
 - RS parity via a 128-step ``lax.scan`` LFSR per codeword (vmapped)
 - scrambling as a vectorized XOR with the CCSDS sequence
@@ -136,9 +136,8 @@ def encode_fec40(payload: jnp.ndarray) -> jnp.ndarray:
 # interleave, sync column — is affine over GF(2), so the WHOLE encoder is
 # e(p) = p_bits @ A ^ e(0) for a fixed 2048 x 5200 bit matrix. The
 # decoder's re-encode verification (FECDecoder.java:831-847) uses this
-# form: one 0/1 MXU matmul (exact in bf16) instead of the scan/scatter
-# pipeline — measured 32.4 -> 4.9 ms at batch 256 on v5e
-# (bench/exp_r9_fec2.py), bit-identical output.
+# form: one 0/1 matmul (exact in bf16) instead of the scan/scatter
+# pipeline, bit-identical output.
 
 _AFFINE_CACHE: dict = {}
 

@@ -10,7 +10,7 @@ Implements, with semantics matching the reference implementation
   (FECDecoder.java:703-852: de-interleave, Viterbi, descramble, 2x RS,
   re-encode check)
 
-This module is the *oracle and test-vector generator*; the TPU compute
+This module is the *oracle and test-vector generator*; the device compute
 path lives in :mod:`jsdr_tpu.fec.viterbi`, :mod:`jsdr_tpu.fec.rs` and
 :mod:`jsdr_tpu.fec.decoder` as batched JAX kernels validated against it.
 """
@@ -124,7 +124,7 @@ def viterbi27(symbols: np.ndarray) -> np.ndarray:
 
     Input: 2*NBITS soft symbol bytes. Output: (NBITS-6)//8 = 320 bytes.
     State metrics are vectorized over the 64 states; the 2566 bit steps
-    run as a host loop (the TPU path uses lax.scan instead).
+    run as a host loop (the JAX path uses lax.scan instead).
     """
     symbols = np.asarray(symbols, dtype=np.uint8)
     n_even = np.arange(0, 64, 2)

@@ -3,15 +3,14 @@
 Re-design of the scalar decoder at FECDecoder.java:325-519 into fixed-shape,
 branchless array code so it jits and vmaps over codewords and frames:
 
-- syndromes and the Chien sweep as MXU **bit-matmuls**: multiplying a
+- syndromes and the Chien sweep as **bit-matmuls**: multiplying a
   GF(256) element by a CONSTANT is linear over GF(2), so evaluating the
   received word (or the error locator) at fixed field points is one 0/1
   matrix product — [.., 2040 data bits] @ [2040, 256 syndrome bits] and
-  [.., 264 lambda bits] @ [264, 2040 eval bits] — exact in a single
-  bf16 MXU pass (0/1 operands, f32 accumulation) and reduced mod 2.
-  Round 5 measured the replaced log-add-antilog gathers at 4.2M/4.3M
-  gathered elements per frame: the to-RS stage fell 119.8 -> 50.9 ms at
-  batch 256 on v5e (bench/exp_r9_fec2.py), bit-exact.
+  [.., 264 lambda bits] @ [264, 2040 eval bits] — exact as one bf16
+  product (0/1 operands, f32 accumulation) and reduced mod 2. It
+  replaces log-add-antilog gathers of 4.2M/4.3M elements per frame;
+  whether the gather form is faster on the GPU is ROADMAP D3.
 - Berlekamp-Massey as a 32-step ``fori_loop`` with masked updates
   (data-dependent in both operands — not constant-linear, stays gathers)
 - Forney evaluation vectorized over the (up to 32) roots
@@ -34,12 +33,14 @@ _ALPHA_NP = np.asarray(ALPHA_TO, dtype=np.int32)   # [256], entry 255 unused->0
 _INDEX_NP = np.asarray(INDEX_OF, dtype=np.int32)   # [256], log(0) = A0
 
 # 256-entry lookups as [16]x[16] nibble bilinear forms (one-hot(hi) @
-# TABLE + a 16-lane masked reduce) instead of dynamic gathers — TPU
-# gathers dominated the whole FEC profile in round 5 (PERF.md). Every
-# entry of both tables is an 8-bit value (<= 255), so a DEFAULT
-# single-bf16-pass dot is EXACT (unlike METTAB in viterbi.py, whose
-# 9-significant-bit entries force HIGHEST there); an exhaustive
-# all-256-inputs test pins this.
+# TABLE + a 16-lane masked reduce) instead of dynamic gathers (whether
+# the gather is faster on the GPU is ROADMAP D3). Every entry of both
+# tables is an 8-bit value (<= 255) and each output sums ONE nonzero
+# product, so the DEFAULT-precision dot is EXACT whether the backend
+# rounds its f32 operands to bf16 (8 significant bits) or to TF32 (11)
+# or keeps them (unlike METTAB in viterbi.py, whose 9-significant-bit
+# entries force HIGHEST there); an exhaustive all-256-inputs test pins
+# this.
 _ALPHA_SQ = _ALPHA_NP.reshape(16, 16).astype(np.float32)
 _INDEX_SQ = _INDEX_NP.reshape(16, 16).astype(np.float32)
 
@@ -109,7 +110,7 @@ def _bits_to_bytes(bits: jnp.ndarray) -> jnp.ndarray:
 
 
 def _bitmat(x_bits: jnp.ndarray, m_np: np.ndarray) -> jnp.ndarray:
-    """0/1 matmul reduced mod 2 — one bf16 MXU pass, exact (0/1 operands
+    """0/1 matmul reduced mod 2 — one bf16 product, exact (0/1 operands
     multiply exactly in bf16; accumulation is f32)."""
     r = lax.dot_general(
         x_bits.astype(jnp.bfloat16), jnp.asarray(m_np, jnp.bfloat16),

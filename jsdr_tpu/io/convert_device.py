@@ -1,18 +1,16 @@
-"""Device-side sample conversion: upload raw int16 and convert on-chip.
+"""Device-side sample conversion: upload raw int16 and convert on the
+device.
 
-The host in typical TPU deployments is the ingest bottleneck (this
-container's host does ~40 MB/s); shipping the raw S16LE bytes to the
-device halves the transfer size vs a float32 planar pair AND moves the
-convert loop onto the VPU. Semantics identical to
+Shipping the raw S16LE bytes to the device halves the transfer size vs
+a float32 planar pair AND moves the convert loop off the host. Semantics identical to
 ``io.convert.s16le_to_complex`` (wrapping 16-bit DC correction then
 1/32767 scale, JavaAudio.java:275-293).
 
-Output is a planar :class:`~jsdr_tpu.ops.cplx.CF` pair — this TPU
-compiler rejects complex HLO (ops/cplx.py), and planar planes are the
-framework's native layout, so the converted block feeds the spectrum /
-demod chains with no further relayout. Proven on the TPU backend by
-``bench.py``'s ingest diagnostic and ``tests/test_io_runtime.py`` (CPU
-semantics vs the host converter).
+Output is a planar :class:`~jsdr_tpu.ops.cplx.CF` pair, the
+framework's native layout (ops/cplx.py), so the converted block feeds
+the spectrum / demod chains with no further relayout. Checked against
+the host converter by ``bench.py``'s ingest phase and
+``tests/test_io_runtime.py``.
 """
 
 from __future__ import annotations

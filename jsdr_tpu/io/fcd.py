@@ -2,7 +2,7 @@
 
 The reference shells out to the external ``fcdctl`` C binary for every
 operation (status probe, tune, reset; FCD.java:95-189) and parses its
-stdout. A TPU host has no USB dongle, so this wrapper degrades to
+stdout. A server host has no USB dongle, so this wrapper degrades to
 ``available() == False`` when the binary is absent — exactly like the
 reference's "no FCD" path (FCD.java:219-224) — while keeping the full
 control surface for deployments that do have RF hardware attached to the

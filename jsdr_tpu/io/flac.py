@@ -2,8 +2,8 @@
 
 The reference reads FLAC transparently by registering jflac-codec as a
 javax.sound SPI (Makefile:9-10) so `file:capture.flac` sources Just Work
-(JavaAudio.java:369-395). A TPU host has no such SPI registry and this
-environment ships no libFLAC, so the framework carries its own codec:
+(JavaAudio.java:369-395). Python has no such SPI registry and this
+framework depends on no libFLAC, so the framework carries its own codec:
 
 - **decoder**: full subset needed for real-world 16/24-bit files —
   CONSTANT / VERBATIM / FIXED(0-4) / LPC subframes, Rice & Rice2

@@ -1,7 +1,7 @@
-"""Block framing: slice a sample stream into fixed TPU-friendly blocks.
+"""Block framing: slice a sample stream into fixed-size device blocks.
 
 The reference frames at 10 blocks/s (JavaAudio.java:58-59) because Swing
-needs display cadence; the TPU framework frames at whatever block size
+needs display cadence; this framework frames at whatever block size
 amortizes dispatch best (typically >= 1 s of samples) — block size is a
 throughput knob, not a latency contract. A compat helper gives the
 0.1 s cadence for display-parity tests.
@@ -43,7 +43,7 @@ class RawBlockFramer:
 
     The raw-mode analog of :class:`BlockFramer`: blocks keep the exact
     capture values so pre-conversion taps (recorder.java:66-74) see the
-    device bytes verbatim, and conversion can happen on the TPU
+    device bytes verbatim, and conversion can happen on the device
     (io.convert_device.s16_to_cf)."""
 
     def __init__(self, block_samples: int, channels: int = 2):

@@ -3,8 +3,8 @@
 The reference is an *application*: it captures from a sound device in
 real time (JavaAudio.java:347-367), paces file replay to ~100 ms/block
 (JavaAudio.java:231-233), and plays demodulated audio through a speaker
-via a dedicated writer thread (demod.java:489-506). A TPU host has no
-sound card, but the same capabilities map onto OS pipes and
+via a dedicated writer thread (demod.java:489-506). A server host has
+no sound card, but the same capabilities map onto OS pipes and
 subprocesses:
 
 - :class:`StreamSource` — blocking reads of S16LE I/Q from stdin, a
@@ -46,7 +46,7 @@ class StreamSource:
       e.g. ``capture:arecord -f S16_LE -r 96000 -c 2 -t raw``)
 
     Reads block until data arrives, so a real-time producer paces the
-    whole pipeline — the TPU equivalent of the reference's blocking
+    whole pipeline — the equivalent of the reference's blocking
     sound-device read (JavaAudio.java:242-251).
     """
 

@@ -1,6 +1,6 @@
 """Signal sources: file readers (raw S16LE / WAV) with the reference's
 loop-at-EOF semantics (JavaAudio.java:252-256), and synthetic generators
-(the TPU framework's equivalent of fir.java's noise/sine/NCO testbench
+(this framework's equivalent of fir.java's noise/sine/NCO testbench
 plus a full BPSK telemetry modulator for closed-loop decode tests).
 """
 

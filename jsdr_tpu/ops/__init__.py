@@ -1,7 +1,7 @@
 """Compute kernels: windows, FFT/PSD spectrum, FIR design & application,
 NCO/mixers. These replace the reference's JTransforms calls and per-sample
 Java loops (fft.java, demod.java, FUNcubeBPSKDemod.java, fir.java) with
-batched XLA ops and Pallas kernels."""
+batched XLA ops."""
 
 from .windows import hamming  # noqa: F401
 from .fir import (  # noqa: F401

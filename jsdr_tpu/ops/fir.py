@@ -2,16 +2,17 @@
 
 Design follows the reference's windowed-sinc band-pass with symmetric
 Hamming window (demod.java:341-375, fir.java:166-195). Application is
-TPU-native instead of a per-sample circular delay buffer:
+batched array code instead of a per-sample circular delay buffer:
 
-- ``fir_apply``: batched convolution via ``lax.conv_general_dilated``
-  (XLA lowers this onto the MXU for large batch x tap counts)
+- ``fir_apply``: causal FIR as one dense matmul against a banded tap
+  matrix
 - ``fir_apply_fft``: overlap-save frequency-domain convolution for long
   blocks / long filters
-- ``polyphase_decimate``: decimate-by-M FIR as a strided window gather +
-  tap matmul — evaluates only the kept outputs, exactly matching the
-  reference's "accumulate M samples then dot" loop
-  (FUNcubeBPSKDemod.java:470-492) at 1/M of the naive FLOPs
+- ``polyphase_decimate``: decimate-by-M FIR that evaluates only the kept
+  outputs, exactly matching the reference's "accumulate M samples then
+  dot" loop (FUNcubeBPSKDemod.java:470-492) at 1/M of the naive FLOPs
+- ``mix_decimate``: the telemetry front end's periodic-pattern tuner mix
+  followed by ``polyphase_decimate``
 - streaming variants thread a (ntaps-1)-sample tail as explicit state so
   block boundaries are seamless (the carried-pytree analog of the delay
   buffers at demod.java:378-396)
@@ -53,14 +54,38 @@ def bandpass_weights(ntaps: int, f_lo: float, f_hi: float, rate: float,
     return jnp.asarray(w, dtype)
 
 
+def _bf16x3_dot(a, b):
+    """f32 matmul as THREE products of hi/lo splits (hi*hi + hi*lo +
+    lo*hi), each at DEFAULT precision.
+
+    hi = the operand rounded to bf16; lo = the f32 remainder. The dropped
+    lo*lo term is O(2^-16) relative. At DEFAULT precision a backend may
+    round the operands of each product (to bf16 or TF32); the hi parts
+    are bf16 values and survive either rounding exactly, and rounding a
+    lo part costs at most 2^-8 of lo, i.e. O(2^-16) of the operand. On
+    the CPU the three products are exact f32.
+
+    The rounding is ``lax.reduce_precision``, not an f32 -> bf16 -> f32
+    cast pair: XLA's GPU compiler may drop such a pair (excess precision
+    is allowed by default), which leaves lo = 0 and the whole product at
+    DEFAULT precision, about 2^-9 relative on the H100."""
+    ah = lax.reduce_precision(a, exponent_bits=8, mantissa_bits=7)
+    al = a - ah
+    bh = lax.reduce_precision(b, exponent_bits=8, mantissa_bits=7)
+    bl = b - bh
+    f = lambda x, y: jnp.dot(x, y, precision=lax.Precision.DEFAULT,
+                             preferred_element_type=jnp.float32)
+    return f(ah, bh) + f(ah, bl) + f(al, bh)
+
+
 def _banded_matmul_fir(z: jnp.ndarray, taps: jnp.ndarray, m: int,
                        n_out: int,
                        precision=lax.Precision.HIGHEST) -> jnp.ndarray:
     """Decimate-by-m FIR y[k] = sum_a z[s_a + k*m] * taps[a] with
     s_a = (m-1) + (ntaps-1) - a, as blocks of 128 outputs x ONE dense
     matmul against a static banded tap matrix (im2col via a single
-    shifted-row concat). Strided slices / minor-dim transposes lower
-    poorly on TPU; this runs on the MXU with aligned contiguous reads.
+    shifted-row concat), reading contiguous rows instead of strided
+    slices.
 
     z: [..., >= n_out*m + ntaps - 1] padded input; returns [..., n_out].
     """
@@ -90,7 +115,6 @@ def _banded_matmul_fir(z: jnp.ndarray, taps: jnp.ndarray, m: int,
         parts.append(rows[..., b:b + nb, :cols])
     zcat = jnp.concatenate(parts, axis=-1)   # [.., nb, span+ext]
     if precision == "bf16x3":
-        from .pallas_kernels import _bf16x3_dot
         y = _bf16x3_dot(zcat, tapmat)
     else:
         y = jnp.matmul(zcat, tapmat, precision=precision)
@@ -132,8 +156,8 @@ def fir_apply_streaming(x, taps: jnp.ndarray, tail,
     with y the same length as x — identical to running the reference's
     per-sample delay-buffer loop across block boundaries. Accepts CF
     pairs (tail then also a CF). ``precision="bf16x3"`` runs the tap
-    matmul as three bf16 MXU passes (O(2^-32) relative error — see
-    pallas_kernels._bf16x3_dot) instead of six-pass HIGHEST emulation.
+    matmul as three split products (see :func:`_bf16x3_dot`) instead of
+    one HIGHEST-precision f32 product.
     """
     if isinstance(x, CF):
         yr, tr = fir_apply_streaming(x.re, taps, tail.re, precision)
@@ -175,7 +199,7 @@ def fir_apply_fft(x, taps: jnp.ndarray):
 def polyphase_decimate(x, taps: jnp.ndarray, m: int,
                        tail=None, gain: float = 1.0):
     """Decimating FIR evaluated only at kept instants, as window-gather +
-    tap contraction (MXU-friendly).
+    tap contraction.
 
     Matches the reference decimator (FUNcubeBPSKDemod.java:470-492): with
     per-block sample indices t = 0..T-1, outputs are produced at
@@ -199,7 +223,7 @@ def polyphase_decimate(x, taps: jnp.ndarray, m: int,
     xp = jnp.concatenate([tail, x], axis=-1)
     # output k is taken at input instant t_k = (k+1)*m - 1, i.e. padded
     # index t_k + ntaps - 1; tap a reads padded index s_a + k*m with
-    # s_a = (m-1) + (ntaps-1) - a — the banded-matmul FIR (MXU).
+    # s_a = (m-1) + (ntaps-1) - a — the banded-matmul FIR.
     n_out = t_len // m
 
     def dec1(z):
@@ -211,3 +235,24 @@ def polyphase_decimate(x, taps: jnp.ndarray, m: int,
         y = dec1(xp)
     new_tail = xp[..., t_len:]
     return y * gain, new_tail
+
+
+def mix_decimate(iq: CF, cos_pat, sin_pat, taps, m: int, tail: CF,
+                 gain: float = 1.0):
+    """NCO mix by a 128-sample periodic pattern, then decimate-by-m FIR,
+    over [S, T] stream rows.
+
+    ``cos_pat``/``sin_pat``: [S, 128] per-stream mix tables, valid when
+    the quantized NCO index sequence is 128-sample periodic (see
+    ``demod.bpsk._nco_pattern``; pass ones for no mix). The mix is the
+    reference's non-complex quirk (i*cos, q*sin). ``tail``: CF [S,
+    ntaps-1] carried MIXED-domain history (the state of
+    :func:`polyphase_decimate`). T must be a multiple of m. Returns
+    (ds CF [S, T//m], new_tail CF)."""
+    t = iq.shape[-1]
+    reps = -(-t // 128)
+    cos_full = jnp.tile(cos_pat, (1, reps))[:, :t]
+    sin_full = jnp.tile(sin_pat, (1, reps))[:, :t]
+    mixed = CF(iq.re * cos_full, iq.im * sin_full)
+    return polyphase_decimate(mixed, jnp.asarray(taps, jnp.float32), m,
+                              tail=tail, gain=gain)

@@ -1,4 +1,4 @@
-"""FFT as MXU matmuls on planar (re, im) pairs — no complex HLO.
+"""FFT as dense matmuls on planar (re, im) pairs — no complex HLO.
 
 A two-level Cooley-Tukey decomposition N = N1*N2 turns the DFT into two
 small dense matmuls plus a twiddle multiply:
@@ -9,15 +9,14 @@ small dense matmuls plus a twiddle multiply:
     D = C @ DFT_N2^T                    (contract n2)
     X[N1*k2 + k1] = D[k1, k2]
 
-Each complex matmul is 4 real matmuls — exactly what the MXU wants; the
-twiddles fuse into the elementwise VPU stream. Sizes with a factor split
+Each complex matmul is 4 real matmuls; the twiddles fuse into the
+elementwise stream. Sizes with a factor split
 whose parts are <= ``max_factor`` use this path; small/prime sizes fall
 back to a single dense DFT matmul. Batched over leading dimensions.
 
-This replaces ``jnp.fft`` everywhere in the pipeline because the
-environment's TPU compiler rejects complex HLO — and a matmul FFT is the
-natural TPU formulation regardless (the FFT sizes here, rate/10, are
-highly composite).
+This replaces ``jnp.fft`` everywhere in the pipeline; the FFT sizes
+here (rate/10) are highly composite. Whether cuFFT through ``jnp.fft``
+is faster on the GPU is ROADMAP S3.
 """
 
 from __future__ import annotations
@@ -57,8 +56,8 @@ def _twiddles(n1: int, n2: int, sign: float) -> Tuple[np.ndarray, np.ndarray]:
 def _best_split(n: int) -> Optional[Tuple[int, int]]:
     """Factor n = n1*n2 with both parts <= _MAX_FACTOR.
 
-    Prefers a lane-aligned n2 (multiple of 128, the TPU lane width) so
-    the stage-1 result and twiddle streams are perfectly tiled; among
+    Prefers an n2 that is a multiple of 128 (then 8), so the stage-1
+    result and twiddle streams are tile-aligned; among
     candidates with the same alignment, the most balanced split wins."""
     best = None
     best_key = None
@@ -94,8 +93,8 @@ def _cmatmul(wr: np.ndarray, wi: np.ndarray, x: CF,
     side="left": contract x's -2 axis -> [..., m, k]  (NOTE: the result's
     free axis order swaps relative to w @ x — callers account for it).
     side="right": contract x's -1 axis -> [..., k].
-    Four real dot_generals per complex matmul — exactly what the MXU
-    wants; no data transposes are emitted.
+    Four real dot_generals per complex matmul; no data transposes are
+    emitted.
     """
     wr = jnp.asarray(wr)
     wi = jnp.asarray(wi)

@@ -3,7 +3,7 @@
 The reference advances a phase accumulator one sample at a time and looks
 up 256-entry sin/cos tables (FUNcubeBPSKDemod.java:93-95, 381-397,
 511-516; demod.java:423-434). Because every phase increment is constant,
-the whole phase trajectory is a closed-form ramp — so on TPU the NCO is a
+the whole phase trajectory is a closed-form ramp — so here the NCO is a
 vectorized elementwise op, not a recurrence. The carried state is just the
 scalar starting phase (an explicit state pytree field), which keeps
 checkpoint/resume and block chaining exact.

@@ -1,10 +1,10 @@
-"""Batched FFT spectrum / PSD — the TPU replacement for fft.java.
+"""Batched FFT spectrum / PSD — the replacement for fft.java.
 
 The reference transforms each 0.1 s block with JTransforms and computes a
 dBFS PSD plus the spectral maximum per block (fft.java:190-228). Here
 blocks are batched [B, N] planar pairs (:mod:`jsdr_tpu.ops.cplx`), the
-transform is the MXU matmul FFT (:mod:`jsdr_tpu.ops.mxu_fft` — no
-complex HLO), and the whole thing is one fused XLA graph.
+transform is the matmul FFT (:mod:`jsdr_tpu.ops.mxu_fft`), and the whole
+thing is one XLA graph.
 
 PSD convention (fft.java:197-207, after pysdr.org):
     psd = 10*log10((re^2 + im^2) * (2/N)^2)
@@ -14,6 +14,7 @@ Frequency convention for the argmax (fft.java:208-221): bin p maps to
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -79,42 +80,61 @@ def spectrum_block(iq, rate: float, window: bool = True) -> SpectrumResult:
     return SpectrumResult(psd, peak_freq.astype(jnp.int32), peak_db)
 
 
-def spectrum_wide(iq, n: int, rate: float, window: bool = True,
-                  natural: bool = True,
-                  interpret: bool | None = None) -> SpectrumResult:
-    """Spectrum over contiguous [S, T] stream rows, n samples per block.
+def wf_group_for(n: int, max_width: int = 2048) -> int:
+    """Display max-decimation group: the smallest divisor q of n with
+    n // q <= max_width (96 kS/s: n = 9600 -> q = 5, 1920 pixels;
+    192 kS/s: n = 19200 -> q = 10, 1920 pixels)."""
+    return next(q for q in range(1, n + 1)
+                if n % q == 0 and n // q <= max_width)
 
-    Avoids the [S, T] -> [S*T/n, n] device reshape (an expensive TPU
-    tile re-shuffle) by computing window+FFT+PSD inside one Pallas
-    kernel that reads the wide rows directly
-    (:func:`jsdr_tpu.ops.pallas_kernels.spectrum_fused`). Falls back to
-    reshape + :func:`spectrum_block` when n doesn't fit the kernel
-    (n % 128 != 0 or n1 > 512). Results have leading shape [S, T//n].
 
-    ``natural=False`` keeps the PSD in the kernel's permuted layout
-    [T//n, S, n1, 128] (natural bin = n1*k2 + k1), skipping one
-    relayout — peaks are always in natural (signed-Hz) convention.
-    """
-    from .pallas_kernels import spectrum_fused, spectrum_natural_order
+class WaterfallOut(NamedTuple):
+    wf: jnp.ndarray         # [S, T//n, n//q] dB max-decimated lines
+    peak_freq: jnp.ndarray  # [S, T//n] Hz (signed, reference truncation)
+    peak_db: jnp.ndarray    # [S, T//n]
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    iq = as_cf(iq)
+
+@partial(jax.jit, static_argnames=("n", "rate", "window"))
+def spectrum_waterfall(iq: CF, n: int, rate: int,
+                       window: bool = True) -> WaterfallOut:
+    """Display spectrum over contiguous [S, T] stream rows, n samples per
+    block (T % n == 0): :func:`spectrum_block` on every block, with the
+    PSD max-decimated to display width.
+
+    The waterfall display max-decimates the PSD to screen width before
+    the intensity map (waterfall.java:90-107 after fft.java's per-pixel
+    max, fft.java:142-150). Pixel p of a line is the max over natural
+    bins [q*p, q*p + q), q = ``wf_group_for(n)``; since the
+    intensity map is monotone, max-then-map equals map-then-max, and any
+    further max-decimation to a narrower screen stays exact. Peaks are
+    spectrum_block's: the full-resolution maximum and its first
+    occurrence in natural bin order."""
     s, t = iq.shape
-    assert t % n == 0
-    if n % 128 != 0 or n // 128 > 512:
-        return spectrum_block(iq.reshape(s, t // n, n), rate=rate,
-                              window=window)
-    psd_perm, peak_db, p = spectrum_fused(iq, n, window=window,
-                                          interpret=interpret,
-                                          with_peaks=True)
-    nblk, _, n1, n2 = psd_perm.shape
-    k_nat = n1 * (p % n2) + p // n2
-    signed = jnp.where(k_nat < n // 2, k_nat, k_nat - n)
-    peak_freq = bin_to_hz(signed, int(rate), n).astype(jnp.int32)
-    psd = spectrum_natural_order(psd_perm) if natural else psd_perm
-    return SpectrumResult(psd, jnp.swapaxes(peak_freq, 0, 1),
-                          jnp.swapaxes(peak_db, 0, 1))
+    with jax.named_scope("spectrum"):
+        res = spectrum_block(iq.reshape(s, t // n, n), rate=rate,
+                             window=window)
+        q = wf_group_for(n)
+        wf = jnp.max(res.psd.reshape(s, t // n, n // q, q), axis=-1)
+    return WaterfallOut(wf, res.peak_freq, res.peak_db)
+
+
+def psd_waterfall(spec, width: int):
+    """[B, N] spectrum (CF pair or complex) -> (psd_db [B, N] f32,
+    line [B, width] u8): dBFS PSD, max-decimated to ``width`` (which
+    must divide N) and mapped to waterfall intensity in centred
+    frequency order (0 Hz mid-screen, waterfall.java:96-106)."""
+    spec = as_cf(spec)
+    assert spec.shape[-1] % width == 0, "width must divide the FFT size"
+    return _psd_waterfall(spec, width)
+
+
+@partial(jax.jit, static_argnames=("width",))
+def _psd_waterfall(spec: CF, width: int):
+    db = psd_dbfs(spec)
+    n = db.shape[-1]
+    dec = jnp.max(db.reshape(*db.shape[:-1], width, n // width), axis=-1)
+    line = jnp.roll(waterfall_intensity(dec), width // 2, axis=-1)
+    return db, line
 
 
 @jax.jit

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: device meshes, halo-exchange overlap-save
+"""Multi-device scaling: device meshes, halo-exchange overlap-save
 filtering, and the sharded telemetry pipeline.
 
 The reference is single-process thread-parallel (SURVEY.md section 2.2);
@@ -6,8 +6,8 @@ this package supplies the distributed design obligations: DP (streams
 across devices), SP (time axis across devices with ring halo exchange of
 filter prehistory via ``ppermute``), TP (one large FFT intra-op sharded,
 ``tp.py``), PP (chain stages pipelined over device groups,
-``pipeline.py``), multi-host DCN (``mesh.init_multihost``, exercised by
-tests/test_multihost.py), and XLA collectives over ICI/DCN.
+``pipeline.py``), multi-host (``mesh.init_multihost``, exercised by
+tests/test_multihost.py), and XLA collectives between devices.
 """
 
 from .mesh import init_multihost, make_mesh  # noqa: F401

@@ -34,11 +34,12 @@ def make_mesh(dp: Optional[int] = None, sp: Optional[int] = None,
 def init_multihost(coordinator: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
-    """Initialize multi-host JAX (DCN across hosts, ICI within a slice).
+    """Initialize multi-host JAX.
 
     Call once per host before building meshes; after this,
-    ``jax.devices()`` spans the whole pod slice and ``make_mesh`` lays
-    dp/sp over it (keep sp within a host/slice so halos ride ICI).
+    ``jax.devices()`` spans every host's devices and ``make_mesh`` lays
+    dp/sp over them (keep sp within a host, so the per-block halo
+    exchanges stay on the host's own device links).
     No-op when already initialized or single-host.
     """
     import jax

@@ -1,7 +1,7 @@
 """Pipeline parallelism: telemetry chain stages on separate device groups,
 composable with data parallelism over streams.
 
-SURVEY §2.2's PP obligation — the TPU analog of the reference's
+SURVEY §2.2's PP obligation — the device analog of the reference's
 thread/stage structure (capture thread -> demod handlers -> FEC/output,
 JavaAudio.java:195-329 / FUNcubeBPSKDemod.java:357-595 /
 FECDecoder.java:703): assign pipeline STAGES to device groups and
@@ -11,7 +11,7 @@ Stages over a ("pp", "dp") mesh (pp = number of stages, dp shards the
 independent streams within each stage):
 
 - **stage 0 (front end)**: per-stream NCO mix + 27-tap decimating
-  polyphase FIR — the full-rate, HBM-bandwidth-bound part
+  polyphase FIR — the full-rate, memory-bandwidth-bound part
   (FUNcubeBPSKDemod.java:382-492 work).
 - **stage 1 (decode tail)**: VCO mix -> matched filter -> timing
   recovery -> sync search on the decimated stream — the scan-heavy,
@@ -22,7 +22,7 @@ independent streams within each stage):
 
 Schedule (GPipe-style, microbatch = one time block): at tick t, stage s
 processes the payload stage s-1 produced at tick t-1; activations hop
-one ICI ``ppermute`` between ticks. The SPMD body picks its stage with
+one ``ppermute`` between ticks. The SPMD body picks its stage with
 ``lax.switch`` on ``axis_index("pp")`` — each device executes only its
 own branch at runtime, so the stages genuinely overlap in wall time and
 meet at the permute. The decimated handoff is rate/9600-times smaller
@@ -126,8 +126,7 @@ def _zero_payload(s: int, t_ds: int, max_hits: int) -> _Payload:
 
 
 def pipelined_telemetry(mesh: Mesh, rate: int = 96000, max_hits: int = 4,
-                        compat_scan: bool = False,
-                        use_pallas: bool | None = None):
+                        compat_scan: bool = False):
     """Build the pipelined telemetry step over ``mesh`` (("pp",) or
     ("pp", "dp"); pp size 2 = front/tail, 3 = front/tail/FEC).
 
@@ -141,8 +140,6 @@ def pipelined_telemetry(mesh: Mesh, rate: int = 96000, max_hits: int = 4,
     Per-stream tunings must be multiples of 0.1 Hz (the exact
     int-numerator NCO path).
     """
-    if use_pallas is None:
-        use_pallas = jax.devices()[0].platform not in ("cpu",)
     n_stages = mesh.shape["pp"]
     assert n_stages in (2, 3), "pipeline supports 2 or 3 stages"
     has_dp = "dp" in mesh.axis_names
@@ -167,11 +164,9 @@ def pipelined_telemetry(mesh: Mesh, rate: int = 96000, max_hits: int = 4,
                 # the shared front-end dispatcher (manual pattern/general
                 # mix, FFT auto-tune, or per-stream mixed — the same
                 # paths as the single-chip batch, demod.bpsk)
-                ds, tail, _mft, tu, ft = B._front_dispatch(
+                ds, tail, tu, ft = B._front_dispatch(
                     CF(xr, xi), st, tunings, dofft, track_high,
-                    rate=rate, mix_mode=mix_mode, static_tunings=None,
-                    use_pallas=use_pallas, compat_scan=compat_scan,
-                    fuse_mf=False)
+                    rate=rate, mix_mode=mix_mode, static_tunings=None)
                 # a bubble must not advance the front-end state
                 st2 = st._replace(
                     tu_phase=jnp.where(bub, st.tu_phase, tu),
@@ -220,7 +215,7 @@ def pipelined_telemetry(mesh: Mesh, rate: int = 96000, max_hits: int = 4,
             stages = [stage0, stage1, stage2][:n_stages]
             payload, st, out = lax.switch(jnp.minimum(k, n_stages - 1),
                                           stages, None)
-            # activations hop stage s -> s+1 over ICI
+            # activations hop stage s -> s+1
             hops = [(i, i + 1) for i in range(n_stages - 1)]
             nxt = jax.tree.map(lambda p: lax.ppermute(p, "pp", hops), payload)
             return (nxt, st), out

@@ -14,7 +14,7 @@ streams run the doBufferFFT front end (FUNcubeBPSKDemod.java:406-464)
 with the per-0.1 s FFT/peak analysis fully parallel per shard and ONLY
 the 3-scalar tuner EMA recurrence relayed across shards (n_sp-1
 ppermute rounds of a tiny state — the FFTs never re-run). The
-decimating FIR's 26-sample halo rides the ICI ring as MIXED-domain
+decimating FIR's 26-sample halo rides the device ring as MIXED-domain
 samples (one ppermute): both front ends produce their feed locally, so
 one halo exchange serves manual, auto and mixed batches alike; shard
 0's halo is the CARRIED mixed-domain tail, so consecutive sharded
@@ -56,8 +56,8 @@ sharded step chains bit-exactly with the single-device
 caveats on the carried STATE: the EMA/e_out carries compose in a
 different (documented) order, and on CPU backends XLA's dot blocking
 depends on operand shape, so the per-shard conv tails can differ from
-the single-device ones by ulps (the TPU MXU's fixed 128-tile blocking
-makes them identical). One decision-level exposure follows from the
+the single-device ones by ulps (GPU libraries also pick dot algorithms
+per shape, so the same holds there). One decision-level exposure follows from the
 first caveat: the peak schedule takes argmax over the fp-reassociated
 EMA trajectory (traj0 + a^k*ema_in), so an exact tie-or-ulp near-tie
 between two lane energies could pick a different peak phase than the
@@ -150,7 +150,7 @@ def _front_dofft_local(iq_loc: CF, ft0: FftTunerState, track_high, *,
 
 def _decimate_with_halo(feed: CF, ds_tail: CF, *, m: int, n_sp: int):
     """Decimating 27-tap FIR over the sharded mixed-domain feed: the
-    26-sample halo hops the ICI ring; shard 0 uses the CARRIED tail.
+    26-sample halo hops the device ring; shard 0 uses the CARRIED tail.
     Returns (ds_loc, new carried ds_tail — replicated to all ranks)."""
     n_tail = len(B.DS_FILTER) - 1
     sp_idx = lax.axis_index("sp")
@@ -214,7 +214,7 @@ def _place_segments(bits_g: jnp.ndarray, n_g: jnp.ndarray,
     valid counts. Segment j lands at offset off_j = sum_{i<j} n_i.
     Placement at a traced offset o = 128*Q + R is a 7-step log fine-roll
     (by R) plus a one-hot row matmul (by Q) — the inverse of
-    demod.bpsk._extract_rows, MXU-exact for +-1/0 values. Returns
+    demod.bpsk._extract_rows, exact in bf16 for +-1/0 values. Returns
     [s_loc, max_bits] i8, zero-padded past the total count (identical
     to the single-device compaction of the full stream)."""
     n_sp, s_loc, mb_loc = bits_g.shape
@@ -383,8 +383,7 @@ def _tail_sharded(ds_loc: CF, states: B.BpskState, tu_phase, ds_tail: CF,
 
     # ---- bit stream: compact LOCALLY (each rank sorts only its own 1/sp
     # of the slots — the sort is the only tail stage whose cost grows
-    # with the gathered length, measured +1.8 ms at sp=4 in
-    # bench/exp_r7_spfold2.py), gather the compacted i8 segments (half
+    # with the gathered length), gather the compacted i8 segments (half
     # the bytes of raw decision planes), and PLACE them at their global
     # offsets: concatenated local compactions ARE the globally sorted
     # stream, so assembly is a per-segment fine roll + one-hot row

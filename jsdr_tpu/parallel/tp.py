@@ -3,7 +3,7 @@
 This is the intra-op (TP) obligation from SURVEY §2.2 — the analog of
 sharding a single huge batched FFT, as opposed to ``sharded_spectrum``'s
 pure data-parallelism over independent blocks. It matters when a single
-transform is too large for one chip's HBM/VMEM window (a wideband
+transform is too large for one device's memory (a wideband
 channelizer over a long capture) or when per-FFT latency must scale
 with device count.
 
@@ -15,7 +15,7 @@ contractions; TP shards the FIRST contraction's reduction axis:
                 A[n1_loc, n2] (rows of A are contiguous in time) and
                 computes a partial B; one ``psum_scatter`` over the mesh
                 axis both reduces the partials and leaves each device
-                with its own k1 rows — the TP-matmul pattern, riding ICI.
+                with its own k1 rows — the TP-matmul pattern.
     twiddle: local elementwise on the device's [k1_loc, n2] slice.
     stage 2: D[k1_loc, k2] = C[k1_loc, n2] @ W2^T — fully local.
 

@@ -2,11 +2,12 @@
 //
 // The reference converts S16LE interleaved I/Q to normalized floats in a
 // per-sample Java loop on the capture thread (JavaAudio.java:275-293,
-// including the wrapping 16-bit DC correction). Feeding a TPU at hundreds
-// of MS/s makes this host loop a real bottleneck, so it lives here as
+// including the wrapping 16-bit DC correction). Feeding an accelerator at
+// hundreds of MS/s makes this host loop a real bottleneck, so it lives here as
 // vectorizable C++ (the compiler auto-vectorizes these simple loops).
 //
-// Build: make -C native   (produces libjsdr_io.so, loaded via ctypes)
+// Build: make -C native   (produces libjsdr_io.so, loaded via ctypes;
+// io/native.py runs this at first use)
 
 #include <cstdint>
 #include <cstddef>

@@ -177,15 +177,15 @@ def test_general_mix_path_decodes(rng):
 
 
 def test_compat_scan_warns_on_accelerator(rng, monkeypatch):
-    """compat_scan=True on a non-CPU backend is a measured ~19x cliff
-    (bench/exp_r7_compat.py): the dispatcher must warn so the parity
-    knob is never flipped on TPU by accident."""
+    """compat_scan=True on a non-CPU backend runs one sequential scan
+    step per decimated sample: the dispatcher must warn so the parity
+    knob is never flipped on the GPU by accident."""
     import warnings
     import jax
     from jsdr_tpu.demod.bpsk import bpsk_block_batch, bpsk_init_batch
 
     class _FakeDev:
-        platform = "tpu"
+        platform = "gpu"
 
     real_devices = jax.devices
 
@@ -196,15 +196,13 @@ def test_compat_scan_warns_on_accelerator(rng, monkeypatch):
     cfg = BpskConfig(rate=96000, tuning=12000.0, compat_scan=True)
     iq = np.zeros((1, 9600), np.complex64)
     with pytest.warns(RuntimeWarning, match="compat_scan"):
-        bpsk_block_batch(iq, cfg, bpsk_init_batch(cfg, 1),
-                         use_pallas=False)
+        bpsk_block_batch(iq, cfg, bpsk_init_batch(cfg, 1))
     monkeypatch.undo()
     # no warning without compat_scan
     cfg2 = BpskConfig(rate=96000, tuning=12000.0)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        bpsk_block_batch(iq, cfg2, bpsk_init_batch(cfg2, 1),
-                         use_pallas=False)
+        bpsk_block_batch(iq, cfg2, bpsk_init_batch(cfg2, 1))
 
 
 def test_parallel_timing_equals_scan(rng):
@@ -227,6 +225,110 @@ def test_parallel_timing_equals_scan(rng):
         assert int(oa.n_hits) == int(ob.n_hits)
     assert int(st_a.timing.peak) == int(st_b.timing.peak)
     assert int(st_a.timing.new_peak) == int(st_b.timing.new_peak)
+
+
+def _rand_timing_states(rng, s):
+    from jsdr_tpu.demod.bpsk import TimingState, bpsk_init_batch
+    tm = bpsk_init_batch(BpskConfig(rate=96000), s).timing
+    # non-trivial carried state: mid-decay EMAs, scheduled peaks,
+    # a previous symbol
+    return TimingState(
+        e_ema=(rng.random((s, 8)).astype(np.float32) * 2e4),
+        pos=tm.pos,
+        peak=rng.integers(0, 8, s).astype(np.int32),
+        new_peak=rng.integers(0, 8, s).astype(np.int32),
+        e_out=(rng.random(s).astype(np.float32) * 100),
+        last_iq=rng.standard_normal((s, 2)).astype(np.float32) * 50,
+    )
+
+
+def _bpsk_like_mf(rng, s, t_ds, amp):
+    # strong alternating symbols + noise, so the energy gate and the
+    # peak schedule both flip realistically
+    mfr = (rng.standard_normal((s, t_ds)) * 30
+           + amp * np.sign(rng.standard_normal((s, t_ds // 8)))
+           .repeat(8, axis=1)).astype(np.float32)
+    mfi = (rng.standard_normal((s, t_ds)) * 30).astype(np.float32)
+    return CF(jnp.asarray(mfr), jnp.asarray(mfi))
+
+
+def _timing_parallel_chained(mf, tm, n_blocks):
+    import jax
+    from jsdr_tpu.demod.bpsk import _timing_parallel
+    t = mf.shape[-1] // n_blocks
+    valid, bit = [], []
+    for b in range(n_blocks):
+        v, bt, _di, _e2, tm = jax.vmap(_timing_parallel)(
+            mf[:, b * t:(b + 1) * t], tm)
+        valid.append(np.asarray(v))
+        bit.append(np.asarray(bt))
+    return np.concatenate(valid, 1), np.concatenate(bit, 1), tm
+
+
+@pytest.mark.parametrize("case", ["s3_t4800", "s8_t9600", "s5_t16384",
+                                  "chained", "batched_decode"])
+def test_timing_parallel_matches_scan(rng, case):
+    """The parallel timing recovery (_timing_parallel) against the
+    per-sample scan (_timing_scan, compat mode): identical bit decisions
+    and peak schedule, carried energies to fp-reassociation tolerance,
+    from random carried states at several (streams, samples) shapes;
+    two chained parallel blocks against one scan over both; and the
+    batched chain's decoded frames and counters in both modes."""
+    import jax
+    from jsdr_tpu.demod.bpsk import _timing_scan, bpsk_block_batch, \
+        bpsk_init_batch
+
+    if case == "batched_decode":
+        payloads = rng.integers(0, 256, (1, 256), dtype=np.uint8)
+        sig = synth_bpsk_stream(payloads, rate=96000, preamble_bits=200,
+                                noise_rms=0.25)
+        n = len(sig) + (-len(sig)) % 96000
+        iq = np.zeros((2, n), np.complex64)
+        iq[0, :len(sig)] = sig
+        iq[1, :len(sig)] = sig[::-1]
+        outs = {}
+        for compat in (False, True):
+            cfg = BpskConfig(rate=96000, tuning=12000.0, compat_scan=compat)
+            st = bpsk_init_batch(cfg, 2)
+            decoded = 0
+            for b in range(n // 96000):
+                out, st = bpsk_block_batch(
+                    iq[:, b * 96000:(b + 1) * 96000], cfg, st)
+                nh = int(out.n_hits[0])
+                if nh:
+                    res = fec_decode(out.windows[0, :nh])
+                    decoded += sum(bool(res.ok[i]) and np.array_equal(
+                        np.asarray(res.payload[i]), payloads[0])
+                        for i in range(nh))
+            outs[compat] = (decoded, np.asarray(st.counters))
+        assert outs[True][0] == outs[False][0] == 1
+        assert np.array_equal(outs[True][1], outs[False][1])
+        return
+
+    if case == "chained":
+        s, t_ds, n_blocks, amp = 4, 2 * 4800, 2, 140
+    else:
+        s, t_ds = (int(v[1:]) for v in case.split("_"))
+        n_blocks, amp = 1, 150
+    tm = _rand_timing_states(rng, s)
+    mf = _bpsk_like_mf(rng, s, t_ds, amp)
+    v_p, b_p, ts_p = _timing_parallel_chained(mf, tm, n_blocks)
+    v_s, b_s, _di, _e2, ts_s = jax.vmap(_timing_scan)(mf, tm)
+    v_s, b_s = np.asarray(v_s), np.asarray(b_s)
+    for k in range(s):
+        # the scan emits per sample, the parallel form per bit slot;
+        # both in time order, so the valid decisions must line up
+        assert np.array_equal(b_p[k][v_p[k]], b_s[k][v_s[k]]), k
+    assert np.array_equal(np.asarray(ts_p.peak), np.asarray(ts_s.peak))
+    assert np.array_equal(np.asarray(ts_p.new_peak),
+                          np.asarray(ts_s.new_peak))
+    np.testing.assert_allclose(np.asarray(ts_p.e_ema),
+                               np.asarray(ts_s.e_ema), rtol=1e-5, atol=1e-2)
+    np.testing.assert_allclose(np.asarray(ts_p.e_out),
+                               np.asarray(ts_s.e_out), rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(np.asarray(ts_p.last_iq),
+                               np.asarray(ts_s.last_iq), rtol=1e-6,
+                               atol=1e-4)
 
 
 def test_mixed_dofft_batch_one_call(rng):
@@ -287,44 +389,15 @@ def test_mixed_dofft_batch_one_call(rng):
     assert _bpsk_block_batched._cache_size() == n_compiles
 
 
-def test_fuse_mf_chain_decodes(rng):
-    """The opt-in fused VCO+matched-filter front end (BpskConfig.fuse_mf,
-    one Pallas kernel for mix+decimate+VCO+MF) must decode the same
-    frames as the default staged chain (fp-reassociation differences
-    stay inside the decode margins)."""
-    from jsdr_tpu.demod.bpsk import bpsk_block_batch, bpsk_init_batch
-
-    payloads = rng.integers(0, 256, (1, 256), dtype=np.uint8)
-    sig = synth_bpsk_stream(payloads, rate=96000, preamble_bits=200)
-    n = len(sig) + (-len(sig)) % 96000
-    iq = np.zeros((1, n), np.complex64)
-    iq[0, :len(sig)] = sig
-
-    cfg = BpskConfig(rate=96000, tuning=12000.0, fuse_mf=True)
-    st = bpsk_init_batch(cfg, 1)
-    good = 0
-    for b in range(n // 96000):
-        # use_pallas=True on CPU runs the kernels under interpret
-        out, st = bpsk_block_batch(iq[:, b * 96000:(b + 1) * 96000], cfg,
-                                   st, use_pallas=True)
-        nh = int(out.n_hits[0])
-        if nh:
-            res = fec_decode(out.windows[0, :nh])
-            good += sum(bool(res.ok[i]) and np.array_equal(
-                np.asarray(res.payload[i]), payloads[0]) for i in range(nh))
-    assert good == 1
-
-
 def test_merged_spectrum_step_matches_staged(rng):
-    """bpsk_block_batch_spectrum (one-input-read merged kernel) must
-    reproduce the staged spectrum_waterfall + bpsk_block_batch pair:
-    identical waterfall lines, peaks, decode outputs, and carried
-    state."""
-    import jax
+    """bpsk_block_batch_spectrum must reproduce spectrum_waterfall +
+    bpsk_block_batch run separately: identical waterfall lines, peaks,
+    decode outputs, and carried state."""
     from jsdr_tpu.demod.bpsk import (bpsk_block_batch,
                                      bpsk_block_batch_spectrum,
                                      bpsk_init_batch)
-    from jsdr_tpu.ops.pallas_kernels import spectrum_waterfall
+    from jsdr_tpu.ops.cplx import from_complex
+    from jsdr_tpu.ops.spectrum import spectrum_waterfall
 
     payloads = rng.integers(0, 256, (1, 256), dtype=np.uint8)
     sig = synth_bpsk_stream(payloads, rate=96000, preamble_bits=200,
@@ -336,47 +409,45 @@ def test_merged_spectrum_step_matches_staged(rng):
     iq[1, :len(sig)] = sig[::-1]
     cfg = BpskConfig(rate=96000, tuning=12000.0)
 
-    for use_pallas in (False, True):      # fallback path / merged kernel
-        st_m = bpsk_init_batch(cfg, 2)
-        st_s = bpsk_init_batch(cfg, 2)
-        decoded = 0
-        for b in range(n // block):
-            blk = iq[:, b * block:(b + 1) * block]
-            spec, out_m, st_m = bpsk_block_batch_spectrum(
-                blk, cfg, st_m, use_pallas=use_pallas)
-            wf_s, mx_s, idx_s = spectrum_waterfall(
-                blk, 9600, interpret=True)
-            out_s, st_s = bpsk_block_batch(blk, cfg, st_s,
-                                           use_pallas=use_pallas)
-            assert np.array_equal(np.asarray(spec.wf), np.asarray(wf_s))
-            assert np.array_equal(np.asarray(spec.peak_db),
-                                  np.asarray(mx_s).swapaxes(0, 1))
-            assert np.array_equal(np.asarray(out_m.n_bits),
-                                  np.asarray(out_s.n_bits))
-            assert np.array_equal(np.asarray(out_m.windows),
-                                  np.asarray(out_s.windows))
-            nh = int(out_m.n_hits[0])
-            if nh:
-                res = fec_decode(out_m.windows[0, :nh])
-                decoded += int(res.ok.sum())
-        assert decoded == 1
-        assert np.array_equal(np.asarray(st_m.counters),
-                              np.asarray(st_s.counters))
-        assert np.array_equal(np.asarray(st_m.ring), np.asarray(st_s.ring))
+    st_m = bpsk_init_batch(cfg, 2)
+    st_s = bpsk_init_batch(cfg, 2)
+    decoded = 0
+    for b in range(n // block):
+        blk = iq[:, b * block:(b + 1) * block]
+        spec, out_m, st_m = bpsk_block_batch_spectrum(blk, cfg, st_m)
+        ref = spectrum_waterfall(from_complex(blk), 9600, 96000)
+        out_s, st_s = bpsk_block_batch(blk, cfg, st_s)
+        assert spec.wf.shape == (2, block // 9600, 1920)
+        assert np.array_equal(np.asarray(spec.wf), np.asarray(ref.wf))
+        assert np.array_equal(np.asarray(spec.peak_db),
+                              np.asarray(ref.peak_db))
+        assert np.array_equal(np.asarray(spec.peak_freq),
+                              np.asarray(ref.peak_freq))
+        assert np.array_equal(np.asarray(out_m.n_bits),
+                              np.asarray(out_s.n_bits))
+        assert np.array_equal(np.asarray(out_m.windows),
+                              np.asarray(out_s.windows))
+        nh = int(out_m.n_hits[0])
+        if nh:
+            res = fec_decode(out_m.windows[0, :nh])
+            decoded += int(res.ok.sum())
+    assert decoded == 1
+    assert np.array_equal(np.asarray(st_m.counters),
+                          np.asarray(st_s.counters))
+    assert np.array_equal(np.asarray(st_m.ring), np.asarray(st_s.ring))
 
 
 def test_merged_spectrum_step_192k(rng):
-    """The merged kernel's 192 kS/s geometry (m=20: 2 FFT blocks / 3
-    sub-chunks of 640 per grid step, sf_geometry) must be eligible and
-    match the staged pair — one 1 s block, decode-path counters and
-    waterfall lines compared."""
+    """The 192 kS/s geometry (m=20, n=19200, 1920-pixel lines at q=10):
+    bpsk_block_batch_spectrum must match the separate pair — one 1 s
+    block, decode-path counters and waterfall lines compared."""
     from jsdr_tpu.demod.bpsk import (bpsk_block_batch,
                                      bpsk_block_batch_spectrum,
                                      bpsk_init_batch)
-    from jsdr_tpu.ops.pallas_kernels import sf_geometry, spectrum_waterfall
+    from jsdr_tpu.ops.cplx import from_complex
+    from jsdr_tpu.ops.spectrum import spectrum_waterfall, wf_group_for
 
-    assert sf_geometry(19200, 20) == (2, 640)
-    assert sf_geometry(9600, 10) == (4, 1280)
+    assert wf_group_for(19200) == 10
     rate = 192000
     payloads = rng.integers(0, 256, (1, 256), dtype=np.uint8)
     sig = synth_bpsk_stream(payloads, rate=rate, preamble_bits=200,
@@ -386,13 +457,12 @@ def test_merged_spectrum_step_192k(rng):
     cfg = BpskConfig(rate=rate, tuning=12000.0)
     st_m = bpsk_init_batch(cfg, 1)
     st_s = bpsk_init_batch(cfg, 1)
-    spec, out_m, st_m = bpsk_block_batch_spectrum(iq, cfg, st_m,
-                                                  use_pallas=True)
-    wf_s, mx_s, idx_s = spectrum_waterfall(iq, rate // 10, interpret=True)
-    out_s, st_s = bpsk_block_batch(iq, cfg, st_s, use_pallas=True)
-    assert np.array_equal(np.asarray(spec.wf), np.asarray(wf_s))
-    assert np.array_equal(np.asarray(spec.peak_db),
-                          np.asarray(mx_s).swapaxes(0, 1))
+    spec, out_m, st_m = bpsk_block_batch_spectrum(iq, cfg, st_m)
+    ref = spectrum_waterfall(from_complex(iq), rate // 10, rate)
+    out_s, st_s = bpsk_block_batch(iq, cfg, st_s)
+    assert spec.wf.shape == (1, 10, 1920)
+    assert np.array_equal(np.asarray(spec.wf), np.asarray(ref.wf))
+    assert np.array_equal(np.asarray(spec.peak_db), np.asarray(ref.peak_db))
     assert np.array_equal(np.asarray(out_m.n_bits), np.asarray(out_s.n_bits))
     assert np.array_equal(np.asarray(out_m.windows),
                           np.asarray(out_s.windows))
@@ -406,9 +476,9 @@ def test_chained_fori_loop_steps_equal_iterated(rng):
     state-derived value each iteration, so even state-free ops (the
     display spectrum) cannot be moved out of the loop by XLA's
     while-loop invariant code motion. (The loop-carried demod state
-    alone is NOT enough: LICM hoisted the whole spectrum kernel of the
-    round-3 constant-input form — values were identical, timing was
-    not; measured in bench/exp_r7_hoist.py.) Guard the value contract:
+    alone is NOT enough: LICM hoisted the whole spectrum of an earlier
+    constant-input form — values were identical, timing was not.) Guard
+    the value contract:
     the chained form must produce bit-identical final state and forced
     sums vs k python-iterated steps applying the same perturbation."""
     import jax

@@ -62,10 +62,10 @@ def test_cli_telemetry_mesh_dofft(fixture_file, capsys):
     assert "frames=2" in out
 
 
-def test_cli_spectrum_reference_fixture(capsys, tmp_path):
+def test_cli_spectrum_reference_fixture(capsys, tmp_path, sine4410):
     png = str(tmp_path / "wf.png")
     main(["--cpu", "--rate", "44100", "--seconds", "2", "spectrum",
-          "file:/root/reference/sine4410.raw", "--show", "1",
+          f"file:{sine4410['raw']}", "--show", "1",
           "--png", png])
     out = capsys.readouterr().out
     assert "-4410 Hz" in out or "4410 Hz" in out
@@ -98,10 +98,10 @@ def test_cli_record(fixture_file, capsys, tmp_path):
     assert (tmp_path / "cap.raw").stat().st_size == 96000 * 4
 
 
-def test_cli_phase(capsys, tmp_path):
+def test_cli_phase(capsys, tmp_path, sine4410):
     png = str(tmp_path / "ph.png")
     main(["--cpu", "--rate", "44100", "--seconds", "1", "phase",
-          "file:/root/reference/sine4410.raw", "--ascii", "--png", png])
+          f"file:{sine4410['raw']}", "--ascii", "--png", png])
     out = capsys.readouterr().out
     assert "autoscale max" in out and "I trace" in out
     assert (tmp_path / "ph.png").stat().st_size > 0

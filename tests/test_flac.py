@@ -64,7 +64,7 @@ def test_streaminfo_fields(signal, tmp_path):
     assert md5 == ref
 
 
-def test_filesource_reads_flac(tmp_path):
+def test_filesource_reads_flac(tmp_path, sine4410):
     """End-to-end: FLAC-encoded sine4410 shows the +-4410 Hz pair."""
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -73,14 +73,13 @@ def test_filesource_reads_flac(tmp_path):
     from jsdr_tpu.ops.cplx import from_complex
     from jsdr_tpu.ops.spectrum import spectrum_block
 
-    raw = np.fromfile("/root/reference/sine4410.raw", "<i2").reshape(-1, 2)
+    raw = sine4410["s16"]
     p = tmp_path / "sine4410.flac"
     write_flac(p, raw.astype(np.int64), 44100, stereo="left_side")
     src = FileSource(p)
     assert src.rate == 44100 and src.channels == 2
     iq = src.all()
-    ref = np.fromfile("/root/reference/sine4410.raw", "<i2").astype(
-        np.float32) / 32767.0
+    ref = raw.reshape(-1).astype(np.float32) / 32767.0
     np.testing.assert_allclose(iq.view(np.float32), ref, atol=1e-6)
     res = spectrum_block(from_complex(jnp.asarray(iq[None, :4096])),
                          rate=44100.0, window=True)

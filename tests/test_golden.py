@@ -2,7 +2,7 @@
 ground truth (see tests/golden/make_golden.py for provenance).
 
 The parity contract (BASELINE.json): bit-exact AO-40 frame recovery on
-recorded IQ. Both the TPU-native parallel timing path and the
+recorded IQ. Both the parallel timing path and the
 ``compat_scan`` per-sample path must recover the exact committed
 payloads; the clean soft windows must decode with rc == 0 (a
 construction-derived contract with no decoder circularity). Covers both

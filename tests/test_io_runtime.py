@@ -119,8 +119,8 @@ def test_wav_width_fallback(tmp_path):
         sources.read_wav(bad)
 
 
-def test_reference_wav_fixture():
-    src = sources.FileSource("/root/reference/sine4410.wav")
+def test_reference_wav_fixture(sine4410):
+    src = sources.FileSource(sine4410["wav"])
     assert src.rate == 44100 and src.channels == 2
     iq = src.all()
     spec = np.fft.fft(iq[:4410])
@@ -562,3 +562,24 @@ def test_spectrum_telemetry_stage_one_pass(rng):
     assert lines and lines[0].shape == (10, 1920)   # 10 blocks/s, 1920 px
     # the BPSK carrier sits at 12 kHz + 1200 Hz
     assert any(abs(p[0] - 13200) < 1300 for p in peaks)
+
+
+def test_compile_cache_dir(monkeypatch, tmp_path):
+    """init_compile_cache leaves an exported JAX_COMPILATION_CACHE_DIR
+    to JAX and otherwise pins the cache to <repo>/.jax_cache."""
+    from pathlib import Path
+
+    import jax
+    from jsdr_tpu.runtime.device import init_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert init_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        want = str(Path(__file__).resolve().parents[1] / ".jax_cache")
+        assert init_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

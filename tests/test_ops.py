@@ -41,6 +41,18 @@ def test_fir_streaming_equals_whole_block(rng):
         np.concatenate([np.asarray(y1), np.asarray(y2)]), y_all, atol=1e-5)
 
 
+def test_bf16x3_dot_keeps_the_lo_products(rng):
+    """The three-product split is within the dropped lo*lo term (~2^-16
+    of sum |a||b|) of the exact product; losing the lo products would
+    leave one bf16 pass, ~2^-9."""
+    a = rng.normal(size=(64, 256)).astype(np.float32)
+    b = rng.normal(size=(256, 128)).astype(np.float32)
+    got = np.asarray(fir._bf16x3_dot(jnp.asarray(a), jnp.asarray(b)))
+    exact = a.astype(np.float64) @ b
+    scale = np.abs(a).astype(np.float64) @ np.abs(b)
+    assert np.max(np.abs(got - exact) / scale) < 2.0 ** -15
+
+
 def test_fir_fft_matches_direct(rng):
     from jsdr_tpu.ops.cplx import to_complex
     x = (rng.normal(size=1000) + 1j * rng.normal(size=1000)).astype(np.complex64)
@@ -122,79 +134,92 @@ def test_quantized_nco_table():
 
 
 def test_pallas_psd_waterfall_matches_reference(rng):
-    from jsdr_tpu.ops.pallas_kernels import psd_waterfall
+    """psd_waterfall equals its numpy formula: dBFS PSD, max-decimated
+    to the display width, intensity-mapped (waterfall.java:90-107) and
+    rolled to centred frequency order."""
+    from jsdr_tpu.ops.spectrum import psd_waterfall
     spec = (rng.standard_normal((16, 1920)) +
             1j * rng.standard_normal((16, 1920))).astype(np.complex64) * 40
-    db_p, line_p = psd_waterfall(jnp.asarray(spec), width=960,
-                                 use_pallas=True, interpret=True)
-    db_r, line_r = psd_waterfall(jnp.asarray(spec), width=960,
-                                 use_pallas=False)
-    np.testing.assert_allclose(np.asarray(db_p), np.asarray(db_r), atol=1e-4)
-    assert np.array_equal(np.asarray(line_p), np.asarray(line_r))
+    db, line = psd_waterfall(jnp.asarray(spec), width=960)
+    n = spec.shape[-1]
+    db_ref = 10.0 * np.log10(np.maximum(
+        np.abs(spec.astype(np.complex128)) ** 2 * (2.0 / n) ** 2, 1e-30))
+    np.testing.assert_allclose(np.asarray(db), db_ref, atol=1e-4)
+    dec = np.asarray(db).reshape(16, 960, 2).max(axis=-1)
+    line_ref = np.roll(np.clip(255.0 - dec * -2.55, 0.0, 255.0)
+                       .astype(np.uint8), 480, axis=-1)
+    assert line.dtype == jnp.uint8
+    assert np.array_equal(np.asarray(line), line_ref)
 
 
 def test_spectrum_fused_matches_block():
-    """The fused Pallas wide-layout spectrum equals reshape+spectrum_block."""
-    import numpy as np
+    """spectrum_waterfall over contiguous [S, T] rows equals
+    reshape + spectrum_block (peaks, and the PSD max-decimated), for a
+    block size that is not a multiple of 128."""
+    import jax
     from jsdr_tpu.ops.cplx import from_complex
-    from jsdr_tpu.ops.spectrum import spectrum_block, spectrum_wide
+    from jsdr_tpu.ops.spectrum import (spectrum_block, spectrum_waterfall,
+                                       wf_group_for)
 
     rng = np.random.default_rng(3)
-    s, t, n = 3, 2 * 1280, 1280   # n1 = 10, n2 = 128
-    sig = (rng.standard_normal((s, t))
-           + 1j * rng.standard_normal((s, t))).astype(np.complex64)
-    cf = from_complex(sig)
-    ref = spectrum_block(cf.reshape(s, t // n, n), rate=9600.0, window=True)
-    got = spectrum_wide(cf, n, rate=9600.0, window=True, interpret=True)
-    np.testing.assert_allclose(np.asarray(got.psd), np.asarray(ref.psd),
-                               rtol=0, atol=2e-3)
-    np.testing.assert_array_equal(np.asarray(got.peak_freq),
-                                  np.asarray(ref.peak_freq))
+    for s, t, n in [(3, 2 * 1280, 1280), (2, 3 * 1000, 1000)]:
+        sig = (rng.standard_normal((s, t))
+               + 1j * rng.standard_normal((s, t))).astype(np.complex64)
+        cf = from_complex(sig)
+        ref = jax.jit(lambda x: spectrum_block(
+            x.reshape(s, t // n, n), rate=9600.0, window=True))(cf)
+        got = spectrum_waterfall(cf, n, 9600, window=True)
+        q = wf_group_for(n)
+        assert got.wf.shape == (s, t // n, n // q)
+        want_wf = np.asarray(ref.psd).reshape(s, t // n, n // q, q).max(-1)
+        np.testing.assert_allclose(np.asarray(got.wf), want_wf,
+                                   rtol=0, atol=2e-3)
+        np.testing.assert_array_equal(np.asarray(got.peak_freq),
+                                      np.asarray(ref.peak_freq))
+        np.testing.assert_allclose(np.asarray(got.peak_db),
+                                   np.asarray(ref.peak_db), atol=2e-3)
 
 
 def test_mix_decimate_fused_matches_reference(rng):
-    """The fused Pallas mix+decimate kernel (interpret mode) equals the
-    pattern-tiled mix + polyphase_decimate oracle, including the carried
-    mixed-domain tail, across chunk-aligned, ragged, and multi-chunk T."""
-    import jax
+    """mix_decimate (tiled 128-sample NCO pattern + decimating FIR)
+    equals the per-sample reference loop — mix i*cos, q*sin, then output
+    k at input instant (k+1)*m-1 (FUNcubeBPSKDemod.java:382-397,
+    470-492) — including the carried mixed-domain tail, across block
+    lengths that are and are not multiples of 128."""
     from jsdr_tpu.ops.cplx import CF
-    from jsdr_tpu.ops.pallas_kernels import _mix_decimate_ref, mix_decimate
+    from jsdr_tpu.ops.fir import mix_decimate
 
     m, nt = 10, 27
     taps = np.random.default_rng(7).standard_normal(nt).astype(np.float32)
     ang = (np.arange(128) % 8) * (2 * np.pi / 8)
-    for s, t in [(1, 12800), (3, 25600), (2, 640), (2, 48000)]:
-        x = CF(jnp.asarray(rng.normal(size=(s, t)).astype(np.float32)),
-               jnp.asarray(rng.normal(size=(s, t)).astype(np.float32)))
-        cos_pat = jnp.asarray(np.tile(np.cos(ang).astype(np.float32),
-                                      (s, 1)))
-        sin_pat = jnp.asarray(np.tile(np.sin(ang).astype(np.float32),
-                                      (s, 1)))
-        tail = CF(jnp.asarray(rng.normal(size=(s, nt - 1)).astype(np.float32)),
-                  jnp.asarray(rng.normal(size=(s, nt - 1)).astype(np.float32)))
-        ref, rt = _mix_decimate_ref(x, cos_pat, sin_pat, taps, m, tail, 3.0)
-        got, gt = mix_decimate(x, cos_pat, sin_pat, taps, m, tail, 3.0,
-                               use_pallas=True, interpret=True,
-                               precision="highest")
-        np.testing.assert_allclose(np.asarray(got.re), np.asarray(ref.re),
+    for s, t in [(1, 1280), (3, 2560), (2, 640), (2, 4800)]:
+        xr = rng.normal(size=(s, t)).astype(np.float32)
+        xi = rng.normal(size=(s, t)).astype(np.float32)
+        cos_pat = np.tile(np.cos(ang).astype(np.float32), (s, 1))
+        sin_pat = np.tile(np.sin(ang).astype(np.float32), (s, 1))
+        tr = rng.normal(size=(s, nt - 1)).astype(np.float32)
+        ti = rng.normal(size=(s, nt - 1)).astype(np.float32)
+        got, gt = mix_decimate(CF(jnp.asarray(xr), jnp.asarray(xi)),
+                               jnp.asarray(cos_pat), jnp.asarray(sin_pat),
+                               taps, m, CF(jnp.asarray(tr), jnp.asarray(ti)),
+                               3.0)
+        k = np.arange(t) % 128
+        mixed = (xr * cos_pat[:, k]).astype(np.float64) \
+            + 1j * (xi * sin_pat[:, k]).astype(np.float64)
+        xp = np.concatenate([tr + 1j * ti, mixed], axis=1)
+        want = np.zeros((s, t // m), np.complex128)
+        for o in range(t // m):
+            at = (o + 1) * m - 1 + (nt - 1)
+            want[:, o] = 3.0 * (xp[:, at - nt + 1:at + 1][:, ::-1]
+                                @ taps.astype(np.float64))
+        np.testing.assert_allclose(np.asarray(got.re), want.real,
                                    rtol=2e-5, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(got.im), np.asarray(ref.im),
+        np.testing.assert_allclose(np.asarray(got.im), want.imag,
                                    rtol=2e-5, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(gt.re), np.asarray(rt.re),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(gt.im), np.asarray(rt.im),
-                                   atol=1e-5)
-        # default bf16x3 FIR matmul: bounded hi/lo-split error only
-        got3, gt3 = mix_decimate(x, cos_pat, sin_pat, taps, m, tail, 3.0,
-                                 use_pallas=True, interpret=True)
-        scale = float(np.abs(np.asarray(ref.re)).max())
-        np.testing.assert_allclose(np.asarray(got3.re), np.asarray(ref.re),
-                                   rtol=0, atol=5e-4 * scale)
-        np.testing.assert_allclose(np.asarray(got3.im), np.asarray(ref.im),
-                                   rtol=0, atol=5e-4 * scale)
-        # the carried tail is copied, not matmul'd: stays exact-ish
-        np.testing.assert_allclose(np.asarray(gt3.re), np.asarray(rt.re),
-                                   atol=1e-5)
+        np.testing.assert_allclose(np.asarray(gt.re), xp[:, -(nt - 1):].real,
+                                   atol=1e-6)
+        np.testing.assert_allclose(np.asarray(gt.im), xp[:, -(nt - 1):].imag,
+                                   atol=1e-6)
 
 
 def test_nco_pattern_matches_full_mix(rng):
@@ -274,91 +299,25 @@ def test_peak_freq_no_int32_overflow():
     assert int(res.peak_freq[0]) == 23456
 
 
-def test_mix_decimate_mf_fused_matches_reference(rng):
-    """The fully fused front end (tuner mix + decimating FIR + VCO mix +
-    matched filter in one kernel) must match the staged reference
-    pipeline to fp-reassociation tolerance, including both carried
-    tails, on chunk-ragged lengths."""
-    import jax
-    import jax.numpy as jnp
-    from jsdr_tpu.demod.bpsk import (DM_FILTER, DS_FILTER,
-                                     HOWARD_FUDGE_FACTOR, _vco_mix,
-                                     _vco_pattern)
-    from jsdr_tpu.ops.cplx import CF, from_complex
-    from jsdr_tpu.ops.fir import fir_apply_streaming
-    from jsdr_tpu.ops.pallas_kernels import mix_decimate, mix_decimate_mf
-
-    s, t, m = 3, 12800 * 2 + 640, 10
-    sig = (0.3 * (rng.standard_normal((s, t))
-                  + 1j * rng.standard_normal((s, t)))).astype(np.complex64)
-    x = from_complex(sig)
-    ones = jnp.ones((s, 128), jnp.float32)
-    tail = CF(jnp.asarray(rng.standard_normal((s, 26)), jnp.float32),
-              jnp.asarray(rng.standard_normal((s, 26)), jnp.float32))
-    mft = CF(jnp.asarray(rng.standard_normal((s, 64)), jnp.float32),
-             jnp.asarray(rng.standard_normal((s, 64)), jnp.float32))
-    vco_idx = jnp.asarray([0, 3, 6], jnp.int32)
-    vcoc, vcos = _vco_pattern(vco_idx)
-    taps = DS_FILTER.astype(np.float32)
-
-    ds, tail_ref = mix_decimate(x, ones, ones, taps, m, tail,
-                                gain=HOWARD_FUDGE_FACTOR, use_pallas=False)
-
-    def stage(ds1, vi1, mft1):
-        bb, _ = _vco_mix(ds1, vi1)
-        return fir_apply_streaming(
-            bb, jnp.asarray(DM_FILTER.astype(np.float32)), mft1,
-            precision="bf16x3")
-
-    mf_ref, mft_ref = jax.vmap(stage)(ds, vco_idx, mft)
-
-    mf, tail_k, mft_k = mix_decimate_mf(
-        x, ones, ones, taps, m, tail, vcoc, vcos,
-        DM_FILTER.astype(np.float32), mft, gain=HOWARD_FUDGE_FACTOR,
-        use_pallas=True, interpret=True)
-    scale = float(np.abs(np.asarray(mf_ref.re)).max())
-    np.testing.assert_allclose(np.asarray(mf.re), np.asarray(mf_ref.re),
-                               atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(mf.im), np.asarray(mf_ref.im),
-                               atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(tail_k.re),
-                               np.asarray(tail_ref.re), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(mft_k.re), np.asarray(mft_ref.re),
-                               atol=2e-5 * scale)
-    # CPU fallback path is the staged pipeline exactly
-    mf_f, _tf, _mf = mix_decimate_mf(
-        x, ones, ones, taps, m, tail, vcoc, vcos,
-        DM_FILTER.astype(np.float32), mft, gain=HOWARD_FUDGE_FACTOR,
-        use_pallas=False)
-    assert np.array_equal(np.asarray(mf_f.re), np.asarray(mf_ref.re))
-
-
 def test_spectrum_waterfall_matches_decimated_psd(rng):
-    """The waterfall-mode spectrum kernel must equal the full-PSD kernel
-    max-decimated in NATURAL bin order, with identical peaks."""
+    """The display waterfall is bit-exactly the full PSD max-decimated
+    in natural bin order (pixel p = max over bins [q*p, q*p + q)), with
+    identical peaks, at the 96 kS/s and 192 kS/s display widths."""
+    import jax
     from jsdr_tpu.ops.cplx import from_complex
-    from jsdr_tpu.ops.pallas_kernels import (spectrum_fused,
-                                             spectrum_natural_order,
-                                             spectrum_waterfall,
-                                             waterfall_natural_order,
-                                             wf_group_for)
+    from jsdr_tpu.ops.spectrum import (spectrum_block, spectrum_waterfall,
+                                       wf_group_for)
 
+    assert wf_group_for(9600) == 5 and wf_group_for(19200) == 10
     n = 9600
     sig = (0.3 * (rng.standard_normal((8, n * 3))
                   + 1j * rng.standard_normal((8, n * 3)))).astype(np.complex64)
     iq = from_complex(sig)
-    psd, mx, idx = spectrum_fused(iq, n, with_peaks=True, interpret=True)
-    wf, mx2, idx2 = spectrum_waterfall(iq, n, interpret=True)
-    assert np.array_equal(np.asarray(mx), np.asarray(mx2))
-    assert np.array_equal(np.asarray(idx), np.asarray(idx2))
-    q = wf_group_for(n)
-    assert q == 5 and wf.shape == (3, 8, 15, 128)
-    nat = np.asarray(spectrum_natural_order(psd))     # [S, nblk, n]
-    ref = nat.reshape(8, 3, n // q, q).max(axis=-1)
-    got = np.asarray(waterfall_natural_order(wf))
-    # bit-equality on every backend: both modes run the SAME scratch-
-    # batched kernel (full-PSD mode is decimation group q=1), so the
-    # decimation identities (natural-order grouping, max-then-log ==
-    # log-then-max) apply to one expression graph, not two.
-    assert np.array_equal(got, ref)
-    assert wf_group_for(19200) == 10                  # 192 kS/s FFT size
+    res = jax.jit(lambda x: spectrum_block(x.reshape(8, 3, n), rate=96000))(iq)
+    got = spectrum_waterfall(iq, n, 96000)
+    assert got.wf.shape == (8, 3, 1920)
+    ref = np.asarray(res.psd).reshape(8, 3, n // 5, 5).max(axis=-1)
+    assert np.array_equal(np.asarray(got.wf), ref)
+    assert np.array_equal(np.asarray(got.peak_db), np.asarray(res.peak_db))
+    assert np.array_equal(np.asarray(got.peak_freq),
+                          np.asarray(res.peak_freq))

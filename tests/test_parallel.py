@@ -256,8 +256,8 @@ def test_sharded_randomized_property_matches_single_device():
         # discrete state must be exact; continuous tails may differ by
         # ulps on CPU, where XLA's dot blocking depends on operand
         # shape (the per-shard conv operands are 1/sp the width of the
-        # single-device ones) — on TPU the fixed 128-tile MXU blocking
-        # makes them bit-identical (fixed-fixture tests assert that)
+        # single-device ones); the fixed-fixture tests assert the
+        # cases where they are bit-identical
         for f in ("ring", "counters", "vco_idx", "tu_phase"):
             assert np.array_equal(np.asarray(getattr(st_s, f)),
                                   np.asarray(getattr(st_r, f))), (trial, f)
